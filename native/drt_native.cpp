@@ -1,8 +1,8 @@
-// Native runtime components for the TPU ray tracer.
+// Native runtime components for the distribution ray tracer.
 //
 // The reference implements its accelerator builds and scene parsing in C++
 // (bvh.cpp:27-227, grid.cpp:30-97, scene.cpp:474-740); these are init-time
-// host paths that feed static tables to the TPU, and Python is too slow for
+// host paths that feed static tables to the device, and Python is too slow for
 // them at dragon scale (100k triangles).  This library provides:
 //
 //  - drt_build_bvh: 12-bucket SAH BVH over object AABBs, flat array layout
@@ -265,7 +265,7 @@ int64_t drt_grid_insert(int64_t n, const float* bmin, const float* bmax,
 }
 
 // Chebyshev (chessboard) distance transform over the grid's occupancy mask,
-// for proximity-cloud empty-space skipping in the TPU DDA (grid traversal).
+// for proximity-cloud empty-space skipping in the DDA (grid traversal).
 // Exact for the chessboard metric via the classic two-pass chamfer scan with
 // unit weights over the 26-neighbourhood.  dist[c] = 0 for occupied cells,
 // else the chebyshev distance to the nearest occupied cell, clamped to cap.
@@ -322,10 +322,9 @@ void drt_chebyshev_dist(int32_t nx, int32_t ny, int32_t nz,
 //
 // This is the reference's hot loop — BVH::Traverse (bvh.cpp:231-311) under
 // the OpenMP pixel loop (main.cpp:603) — re-implemented over our flat node
-// tables and packed object rows, multithreaded with std::thread, so
-// bench.py can record an honest native-CPU Mrays/s on the SAME HOST the TPU
-// numbers come from (VERDICT r4 item 2: make the "beats the reference"
-// claim testable).  Semantics mirrored: explicit stack with near-child
+// tables and packed object rows, multithreaded with std::thread: an
+// independent reference for the device traversals' primary winners and a
+// native-CPU baseline on the host that drives the device.  Semantics mirrored: explicit stack with near-child
 // ordering by entry t, inside-AABB t := 0 (bvh.cpp:256-257), stack pops
 // pruned by stack.t < hitRec.t (bvh.cpp:300-308), strict-< closest update,
 // and the reference primitive formulas (scene.cpp:44-278).

@@ -2,20 +2,19 @@
 
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from distributionraytracer_tpu.accel.bvh import (
+from distributionraytracer.accel.bvh import (
     build_bvh, make_bvh_intersectors, make_threaded_intersectors, thread_bvh,
 )
-from distributionraytracer_tpu.accel.grid import (
+from distributionraytracer.accel.grid import (
     build_grid, make_grid_intersectors, make_grid_scalar_intersectors,
 )
-from distributionraytracer_tpu.ops.intersect import closest_hit_brute
-from distributionraytracer_tpu.scene import load_p3f
-from distributionraytracer_tpu.scene.builder import SceneBuilder
+from distributionraytracer.ops.intersect import closest_hit_brute
+from distributionraytracer.scene import load_p3f
+from distributionraytracer.scene.builder import SceneBuilder
 
 
 def random_scene(n_spheres=40, n_tris=30, n_boxes=5, seed=0):
@@ -151,7 +150,7 @@ def test_threaded_bvh_mesh(scenes_dir):
 
 def test_shadow_agreement(scene):
     """Any-hit agreement on in-grid rays with a generous distance."""
-    from distributionraytracer_tpu.ops.intersect import any_hit_brute
+    from distributionraytracer.ops.intersect import any_hit_brute
     n = 256
     rng = np.random.default_rng(3)
     # origins inside the grid bbox: rays that miss the grid entirely are
@@ -201,47 +200,3 @@ def test_bvh_mesh_scene(scenes_dir):
     m = np.asarray(ref.hit)
     np.testing.assert_allclose(np.asarray(got.t)[m], np.asarray(ref.t)[m],
                                rtol=1e-5)
-
-
-def test_collapse_leaves_structure_and_exactness():
-    """collapse_leaves folds DFS-contiguous subtrees into coarse leaves:
-    node count shrinks, object coverage is preserved exactly, and the XLA
-    threaded traversal over the collapsed tree returns identical winners."""
-    import os
-
-    from distributionraytracer_tpu.accel.bvh import (
-        build_bvh, collapse_leaves, make_threaded_intersectors, thread_bvh,
-    )
-    from distributionraytracer_tpu.scene import load_p3f
-
-    scenes_dir = "/root/reference/DistributionRayTracer/P3D_Scenes"
-    scene = load_p3f(os.path.join(scenes_dir, "blueDiamond.p3f"))
-    sdp = scene.device_put()
-    tb = thread_bvh(build_bvh(scene))
-    tc = collapse_leaves(tb, 16)
-    assert tc.node_box.shape[0] < tb.node_box.shape[0]
-    meta = np.asarray(tc.node_meta)
-    nobjs = meta[:, 2]
-    assert nobjs.max() <= 16
-    assert nobjs.sum() == np.asarray(tb.node_meta)[:, 2].sum()  # coverage
-    # every leaf's object range is disjoint and covers [0, O)
-    leaf = nobjs > 0
-    spans = sorted(zip(meta[leaf, 1], nobjs[leaf]))
-    pos = 0
-    for first, n in spans:
-        assert first == pos
-        pos += n
-    assert pos == np.asarray(tb.obj_order).shape[0]
-
-    i0 = make_threaded_intersectors(sdp, jax.device_put(tb), False)
-    i1 = make_threaded_intersectors(sdp, jax.device_put(tc), False)
-    rng = np.random.default_rng(7)
-    R = 1024
-    o = jnp.asarray(rng.normal(0, 30, (R, 3)).astype(np.float32))
-    d = jnp.asarray(rng.normal(size=(R, 3)).astype(np.float32))
-    d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
-    h0 = i0.closest(o, d, jnp.zeros(R))
-    h1 = i1.closest(o, d, jnp.zeros(R))
-    np.testing.assert_array_equal(np.asarray(h0.obj_id),
-                                  np.asarray(h1.obj_id))
-    np.testing.assert_allclose(np.asarray(h0.t), np.asarray(h1.t))

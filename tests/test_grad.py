@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from distributionraytracer_tpu.config import RenderConfig
-from distributionraytracer_tpu.integrator.render import (
+from distributionraytracer.config import RenderConfig
+from distributionraytracer.integrator.render import (
     make_samples, render_from_samples,
 )
 from tests.test_whitted import small_scene
@@ -62,7 +62,7 @@ def test_soft_shadow_grad_matches_fd_at_edge():
     sphere's shadow boundary (the sphere itself is outside the cropped
     loss window, so no primary-silhouette discontinuity pollutes the FD).
     """
-    from distributionraytracer_tpu.scene.builder import SceneBuilder
+    from distributionraytracer.scene.builder import SceneBuilder
 
     b = SceneBuilder()
     # camera straight down; window x in [-0.03, 1.23] at the floor, shadow
@@ -118,37 +118,9 @@ def test_soft_shadow_off_is_reference_hard_shadow():
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_grad_with_pallas_brute_kernel():
-    """Inverse rendering no longer falls back off the Pallas megakernel:
-    the forward-only kernel runs under stop_gradient to pick winners and
-    the winning hit is recomputed differentiably
-    (parallel.mesh.accel_intersectors(differentiable=True)).  Forward must
-    match the plain jnp render and gradients must match the jnp autodiff
-    path (same piecewise-smooth function away from selection boundaries)."""
-    from distributionraytracer_tpu.parallel.mesh import accel_intersectors
-
-    scene = small_scene(glass=True).device_put()
-    samples = make_samples(scene, RenderConfig(spp=1), jax.random.PRNGKey(2))
-
-    def loss(cd, cfg):
-        s = dataclasses.replace(scene, mat_cd=cd)
-        inter = accel_intersectors(s, cfg, None, differentiable=True)
-        img = render_from_samples(s, cfg, samples, inter=inter)
-        return jnp.sum(img * jnp.cos(jnp.arange(img.size).reshape(img.shape)))
-
-    on = RenderConfig(spp=1, pallas="on")    # interpret-mode kernel on CPU
-    off = RenderConfig(spp=1, pallas="off")  # plain jnp brute autodiff
-    v_on, g_on = jax.value_and_grad(loss)(scene.mat_cd, on)
-    v_off, g_off = jax.value_and_grad(lambda cd: loss(cd, off))(scene.mat_cd)
-    np.testing.assert_allclose(float(v_on), float(v_off), rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(g_on), np.asarray(g_off),
-                               rtol=1e-3, atol=1e-5)
-    assert np.abs(np.asarray(g_on)).max() > 0
-
-
 def test_grad_through_quad_light_and_skybox(scenes_dir):
     import os
-    from distributionraytracer_tpu.scene import load_p3f
+    from distributionraytracer.scene import load_p3f
     scene = load_p3f(os.path.join(scenes_dir, "balls_low.p3f")).device_put()
     st = dataclasses.replace(scene.static, res_x=16, res_y=16, spp=0)
     scene = dataclasses.replace(scene, static=st)
@@ -189,7 +161,7 @@ def test_soft_shadow_grad_matches_fd_at_triangle_edge():
 
     Construction mirrors the sphere test: overhead camera sees only floor;
     a triangle at y=1 casts a shadow edge crossing the loss window."""
-    from distributionraytracer_tpu.scene.builder import SceneBuilder
+    from distributionraytracer.scene.builder import SceneBuilder
 
     b = SceneBuilder()
     b.set_camera([0.6, 8.0, 1e-3], [0.6, -1.0, 0.0], [0, 0, 1],
@@ -227,7 +199,7 @@ def test_soft_silhouette_grad_matches_fd_at_sphere_edge():
     soft_silhouette > 0 the pixel blends smoothly across the sphere's
     hit-vs-miss boundary, so d(image)/d(center) matches FD at the
     silhouette — the hard renderer's gradient there is zero."""
-    from distributionraytracer_tpu.scene.builder import SceneBuilder
+    from distributionraytracer.scene.builder import SceneBuilder
 
     b = SceneBuilder()
     # camera looking straight at a floating sphere against the background;

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from distributionraytracer_tpu.ops import intersect as I
-from distributionraytracer_tpu.scene.builder import SceneBuilder
+from distributionraytracer.ops import intersect as I
+from distributionraytracer.scene.builder import SceneBuilder
 
 
 def _mk(o, d):

@@ -6,7 +6,7 @@ import time
 import numpy as np
 import pytest
 
-from distributionraytracer_tpu import native
+from distributionraytracer import native
 
 
 @pytest.fixture(scope="module")
@@ -24,8 +24,8 @@ def test_parse_floats(lib_ok):
 
 
 def test_bvh_native_matches_numpy(lib_ok, scenes_dir):
-    from distributionraytracer_tpu.accel.bvh import build_bvh
-    from distributionraytracer_tpu.scene import load_p3f
+    from distributionraytracer.accel.bvh import build_bvh
+    from distributionraytracer.scene import load_p3f
     scene = load_p3f(os.path.join(scenes_dir, "blueDiamond.p3f"),
                      load_sky=False)
     a = build_bvh(scene, use_native=True)
@@ -45,7 +45,7 @@ def test_bvh_native_matches_numpy(lib_ok, scenes_dir):
 
 def test_grid_native_matches_numpy(lib_ok):
     from tests.test_accel import random_scene
-    from distributionraytracer_tpu.accel import grid as G
+    from distributionraytracer.accel import grid as G
     scene = random_scene(n_spheres=30, n_tris=20, n_boxes=4, seed=5)
     bb = G.object_bboxes(scene)
     gmin = bb[:, 0].min(0).astype(np.float64) - 1e-3
@@ -70,8 +70,8 @@ def test_grid_native_matches_numpy(lib_ok):
 
 def test_bvh_native_dragon_scale(lib_ok, scenes_dir):
     """100k-triangle dragon builds in seconds, not minutes."""
-    from distributionraytracer_tpu.accel.bvh import build_bvh
-    from distributionraytracer_tpu.scene import load_p3f
+    from distributionraytracer.accel.bvh import build_bvh
+    from distributionraytracer.scene import load_p3f
     scene = load_p3f(os.path.join(scenes_dir, "dragon_assignment1.p3f"),
                      load_sky=False)
     assert scene.static.n_triangles >= 100000
@@ -86,28 +86,27 @@ def test_bvh_native_dragon_scale(lib_ok, scenes_dir):
     assert len(np.unique(order)) == scene.static.n_objects
 
 
-def test_native_traverse_matches_threaded():
-    """The native CPU benchmark traversal (drt_traverse_closest) must
-    find the same winners as the XLA threaded path on a real scene —
-    it is the baseline the bench compares TPU numbers against."""
+def test_native_traverse_matches_threaded(scenes_dir):
+    """The native CPU traversal (drt_traverse_closest) must find the same
+    winners as the XLA threaded path on a real scene — it is the
+    independent reference the chip smoke test checks primary winners
+    against."""
     import os
 
     import jax
     import numpy as np
 
-    from distributionraytracer_tpu import native
-    from distributionraytracer_tpu.accel.bvh import (
+    from distributionraytracer import native
+    from distributionraytracer.accel.bvh import (
         build_bvh, make_threaded_intersectors, thread_bvh,
     )
-    from distributionraytracer_tpu.accel.grid import object_bboxes
-    from distributionraytracer_tpu.scene import load_p3f
+    from distributionraytracer.accel.grid import object_bboxes
+    from distributionraytracer.scene import load_p3f
 
     if not native.available():
         import pytest
         pytest.skip("native toolchain unavailable")
-    scene = load_p3f(os.path.join(
-        "/root/reference/DistributionRayTracer/P3D_Scenes",
-        "blueDiamond.p3f"))
+    scene = load_p3f(os.path.join(scenes_dir, "blueDiamond.p3f"))
     bb = object_bboxes(scene)
     nmin, nmax, leaf, index, nobjs, order = native.build_bvh_native(
         bb[:, 0], bb[:, 1])

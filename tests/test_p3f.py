@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from distributionraytracer_tpu.scene import load_p3f
-from distributionraytracer_tpu.scene.types import (
+from distributionraytracer.scene import load_p3f
+from distributionraytracer.scene.types import (
     ACCEL_BVH, ACCEL_GRID, ACCEL_NONE,
 )
 

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from distributionraytracer_tpu.config import RenderConfig
-from distributionraytracer_tpu.integrator import pathtracer as PT
-from distributionraytracer_tpu.scene import pt_scenes as PS
+from distributionraytracer.config import RenderConfig
+from distributionraytracer.integrator import pathtracer as PT
+from distributionraytracer.scene import pt_scenes as PS
 
 
 def test_glsl_hash_deterministic():

@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from distributionraytracer_tpu.config import RenderConfig
-from distributionraytracer_tpu.integrator.render import make_samples
-from distributionraytracer_tpu.renderer import Renderer
-from distributionraytracer_tpu.scene import load_p3f
-from distributionraytracer_tpu.scene.types import ACCEL_NONE
+from distributionraytracer.config import RenderConfig
+from distributionraytracer.integrator.render import make_samples
+from distributionraytracer.renderer import Renderer
+from distributionraytracer.scene import load_p3f
+from distributionraytracer.scene.types import ACCEL_NONE
 
 
 def _crop(scene, w, h, spp=None):
@@ -26,10 +26,10 @@ def _crop(scene, w, h, spp=None):
 def _accel_intersectors(scene, cfg):
     """The scene's accel-path Intersectors, exactly as the Renderer builds
     them (XLA traversal on CPU)."""
-    from distributionraytracer_tpu.renderer import build_accel
-    from distributionraytracer_tpu.parallel.mesh import accel_intersectors
+    from distributionraytracer.renderer import build_accel
+    from distributionraytracer.parallel.mesh import accel_intersectors
     ab = build_accel(scene)
-    return accel_intersectors(scene.device_put(), cfg, ab.xla,
+    return accel_intersectors(scene.device_put(), cfg, ab.tables,
                               grid_unroll=ab.grid_unroll)
 
 
@@ -59,13 +59,13 @@ def _compare_accel_vs_oracle(scene, cfg, atol=3e-3):
     traversal itself.
     """
     import jax.numpy as jnp
-    from distributionraytracer_tpu.integrator.render import (
+    from distributionraytracer.integrator.render import (
         _rays_from_samples,
     )
-    from distributionraytracer_tpu.integrator.whitted import (
+    from distributionraytracer.integrator.whitted import (
         brute_intersectors,
     )
-    from distributionraytracer_tpu.oracle import oracle_render
+    from distributionraytracer.oracle import oracle_render
     samples = make_samples(scene, cfg, jax.random.PRNGKey(0))
     scene_dp = scene.device_put()
 
@@ -162,19 +162,19 @@ def test_progressive_checkpoint_roundtrip(tmp_path):
 
 
 def test_cli_render_smoke(tmp_path, scenes_dir):
-    from distributionraytracer_tpu.cli import main
+    from distributionraytracer.cli import main
     out = str(tmp_path / "out.png")
     main(["render", os.path.join(scenes_dir, "balls_low.p3f"),
           "-o", out, "--res", "24", "24", "--spp", "1"])
     assert os.path.exists(out)
-    from distributionraytracer_tpu.utils.image import read_png
+    from distributionraytracer.utils.image import read_png
     img = read_png(out)
     assert img.shape == (24, 24, 3)
     assert img.std() > 0.03
 
 
 def test_cli_pathtrace_smoke(tmp_path):
-    from distributionraytracer_tpu.cli import main
+    from distributionraytracer.cli import main
     out = str(tmp_path / "pt.png")
     main(["pathtrace", "--scene", "3", "-o", out, "--res", "16", "16",
           "--spp", "2", "--bounces", "3"])
@@ -186,7 +186,7 @@ def test_create_random_scene_structure():
     spheres (10x10 grid minus the big-sphere exclusion zone) + 3 big
     spheres, 3 point lights, 800x600 fovy-40 camera, spp 0, accel NONE,
     sky-blue background."""
-    from distributionraytracer_tpu.scene.procedural import (
+    from distributionraytracer.scene.procedural import (
         create_random_scene,
     )
     scene = create_random_scene(seed=0)
@@ -225,10 +225,10 @@ def test_create_random_scene_structure():
 
 def test_cli_render_random_smoke(tmp_path):
     """CLI `render random` (main.cpp:996-1001 path) renders and writes."""
-    from distributionraytracer_tpu.cli import main
+    from distributionraytracer.cli import main
     out = str(tmp_path / "rand.png")
     main(["render", "random", "-o", out, "--res", "32", "24", "--spp", "1"])
-    from distributionraytracer_tpu.utils.image import read_png
+    from distributionraytracer.utils.image import read_png
     img = read_png(out)
     assert img.shape == (24, 32, 3)
     # sky-blue background visible and scene structure present
@@ -236,28 +236,22 @@ def test_cli_render_random_smoke(tmp_path):
     assert img[..., 2].mean() > 0.3
 
 
-def test_executed_backend_matches_routing():
-    """BENCH's backend column must report what the renderer actually
-    routes (VERDICT r4 weak #4: the declared accel mislabeled the
-    cost-brute scenes)."""
-    import dataclasses
+def test_executed_backend_matches_routing(scenes_dir):
+    """Renderer.route is the route routing.select_route gives for the
+    scene's accel on this platform (the CPU: XLA routes only)."""
+    from distributionraytracer.config import RenderConfig
+    from distributionraytracer.renderer import Renderer
+    from distributionraytracer.scene import load_p3f
 
-    from distributionraytracer_tpu.config import RenderConfig
-    from distributionraytracer_tpu.renderer import Renderer
-    from distributionraytracer_tpu.scene import load_p3f
-
-    scenes = "/root/reference/DistributionRayTracer/P3D_Scenes"
-    # blueDiamond (grid, 178 objs, no planes): cost-brute under the
-    # default threshold, binned+grid-packet when the override is off
-    scene = load_p3f(f"{scenes}/blueDiamond.p3f")
-    pcfg = RenderConfig(spp=0, accel_backend="pallas")
-    r = Renderer(scene, pcfg)
-    assert r.executed_backend() == "cost-brute"
-    r2 = Renderer(scene, pcfg.replace(accel_cost_threshold=0))
-    assert r2.executed_backend().endswith("grid-packet")
-    assert r2.executed_backend().startswith("binned")
-    # balls_low (accel none) on the XLA backend
-    scene = load_p3f(f"{scenes}/balls_low.p3f")
-    r3 = Renderer(scene, RenderConfig(spp=1, accel_backend="xla",
-                                      pallas="off"))
-    assert r3.executed_backend() == "brute-xla"
+    want = {"balls_low": "brute-xla", "blueDiamond": "grid-xla"}
+    for name, route in want.items():
+        scene = _crop(load_p3f(os.path.join(scenes_dir, f"{name}.p3f")),
+                      8, 8, spp=0)
+        assert Renderer(scene, RenderConfig()).route == route
+    scene = _crop(load_p3f(os.path.join(scenes_dir, "blueDiamond.p3f")),
+                  8, 8, spp=0)
+    scene = dataclasses.replace(
+        scene, static=dataclasses.replace(scene.static, accel=2))
+    for backend in ("auto", "xla"):
+        r = Renderer(scene, RenderConfig(accel_backend=backend))
+        assert r.route == "bvh-xla"

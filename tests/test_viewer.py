@@ -11,9 +11,9 @@ import pytest
 @pytest.fixture(scope="module")
 def server(scenes_dir):
     import dataclasses
-    from distributionraytracer_tpu.config import RenderConfig
-    from distributionraytracer_tpu.scene import load_p3f
-    from distributionraytracer_tpu.viewer import make_server
+    from distributionraytracer.config import RenderConfig
+    from distributionraytracer.scene import load_p3f
+    from distributionraytracer.viewer import make_server
 
     scene = load_p3f(os.path.join(scenes_dir, "balls_low.p3f"))
     scene = dataclasses.replace(scene, static=dataclasses.replace(
@@ -40,7 +40,7 @@ def _get(port, path):
 
 def test_viewer_page_and_state(server):
     body, _ = _get(server, "/")
-    assert b"distributionraytracer_tpu" in body
+    assert b"distributionraytracer" in body
     body, _ = _get(server, "/state")
     st = json.loads(body)
     assert {"alpha", "beta", "r", "progressive"} <= set(st)
@@ -70,7 +70,7 @@ def test_viewer_screenshot(server, tmp_path):
     assert meta["path"] == str(out)
     with open(out, "rb") as f:
         assert f.read(4) == b"\x89PNG"
-    from distributionraytracer_tpu.utils.image import read_png
+    from distributionraytracer.utils.image import read_png
     img = read_png(str(out))
     assert img.shape == (24, 24, 3)
 
@@ -78,8 +78,8 @@ def test_viewer_screenshot(server, tmp_path):
 # ------------------------------------------------- interactive path tracer
 @pytest.fixture(scope="module")
 def pt_server():
-    from distributionraytracer_tpu.config import RenderConfig
-    from distributionraytracer_tpu.viewer import PTViewerState, make_server
+    from distributionraytracer.config import RenderConfig
+    from distributionraytracer.viewer import PTViewerState, make_server
 
     state = PTViewerState(0, RenderConfig(max_bounces=3), res=(32, 24),
                           chunk_spp=1)
@@ -126,7 +126,7 @@ def test_page_has_capture_and_pause_ui():
     """Viewer parity with the WebGL harness's capture extras
     (P3D_RT.html:2301-2342): webm recording (MediaRecorder over a canvas
     fed from each frame) and a pause/restart control."""
-    from distributionraytracer_tpu.viewer import _PAGE
+    from distributionraytracer.viewer import _PAGE
     assert "MediaRecorder" in _PAGE
     assert "capture.webm" in _PAGE
     assert "paused" in _PAGE and "toggleRecord" in _PAGE

@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from distributionraytracer_tpu.config import RenderConfig
-from distributionraytracer_tpu.integrator.render import (
+from distributionraytracer.config import RenderConfig
+from distributionraytracer.integrator.render import (
     SampleSet, default_config, render_image,
 )
-from distributionraytracer_tpu.oracle import oracle_render
-from distributionraytracer_tpu.scene import load_p3f
-from distributionraytracer_tpu.scene.builder import SceneBuilder
+from distributionraytracer.oracle import oracle_render
+from distributionraytracer.scene import load_p3f
+from distributionraytracer.scene.builder import SceneBuilder
 
 
 def assert_images_close(img, ref, atol=3e-3, outlier_frac=0.005,
@@ -84,6 +84,19 @@ def test_whitted_matches_oracle_quadlight():
     np.testing.assert_allclose(img, ref, atol=2e-3)
 
 
+def test_oracle_crop_origin_matches_full_frame():
+    """oracle_render(origin=...) renders a crop of the frame exactly as the
+    full-frame render has it (the check chip_smoke runs on the card)."""
+    scene = small_scene()
+    samples = fixed_samples(scene, spp=1, seed=4)
+    full = oracle_render(scene, samples)
+    y0, x0, n = 5, 9, 6
+    crop = SampleSet(*(np.asarray(a)[y0:y0 + n, x0:x0 + n] for a in (
+        samples.pixel, samples.light, samples.lens, samples.time)))
+    part = oracle_render(scene, crop, origin=(x0, y0))
+    np.testing.assert_array_equal(part, full[y0:y0 + n, x0:x0 + n])
+
+
 def test_whitted_p3f_balls_low_crop(scenes_dir):
     """Real P3F scene at reduced res, deterministic center samples."""
     scene = load_p3f(os.path.join(scenes_dir, "balls_low.p3f"))
@@ -152,7 +165,7 @@ def test_motion_blur_matches_oracle(scenes_dir):
 def test_live_partition_properties():
     """_live_partition: stable permutation, live-first, exact inverse."""
     import numpy as np
-    from distributionraytracer_tpu.integrator.whitted import _live_partition
+    from distributionraytracer.integrator.whitted import _live_partition
 
     rng = np.random.default_rng(0)
     for n in (1, 7, 128, 1000):
@@ -180,12 +193,12 @@ def test_compact_lanes_output_equivalent(scenes_dir):
 
     import jax
     import numpy as np
-    from distributionraytracer_tpu.integrator.render import (
+    from distributionraytracer.integrator.render import (
         SampleSet, default_config, make_samples,
     )
-    from distributionraytracer_tpu.renderer import Renderer
-    from distributionraytracer_tpu.scene import load_p3f
-    from distributionraytracer_tpu.scene.types import ACCEL_BVH
+    from distributionraytracer.renderer import Renderer
+    from distributionraytracer.scene import load_p3f
+    from distributionraytracer.scene.types import ACCEL_BVH
 
     scene = load_p3f(os.path.join(scenes_dir, "teste.p3f"))
     scene = dataclasses.replace(
@@ -194,73 +207,7 @@ def test_compact_lanes_output_equivalent(scenes_dir):
     imgs = {}
     for compact in (False, True):
         cfg = default_config(scene).replace(
-            compact_lanes=compact, accel_backend="xla",
-            accel_cost_threshold=0)
+            compact_lanes=compact, accel_backend="xla")
         r = Renderer(scene, cfg)
         imgs[compact] = np.asarray(r.render(jax.random.PRNGKey(0)))
     np.testing.assert_array_equal(imgs[False], imgs[True])
-
-
-def test_fused_level_matches_staged(scenes_dir):
-    """The fused Whitted level megakernel (ops.pallas_whitted) must match
-    the staged closest/shade/shadow pipeline on a full refl+refr scene
-    (interpret mode; cfg.pallas='on' forces the kernels on CPU)."""
-    import dataclasses
-    import os
-
-    import jax
-    import numpy as np
-    from distributionraytracer_tpu.integrator.render import default_config
-    from distributionraytracer_tpu.renderer import Renderer
-    from distributionraytracer_tpu.scene import load_p3f
-
-    scene = load_p3f(os.path.join(scenes_dir, "teste.p3f"))
-    scene = dataclasses.replace(
-        scene, static=dataclasses.replace(scene.static, res_x=32,
-                                          res_y=24, spp=1))
-    imgs = {}
-    for label, pallas in (("staged", "off"), ("fused", "on")):
-        cfg = default_config(scene).replace(pallas=pallas)
-        r = Renderer(scene, cfg)
-        imgs[label] = np.asarray(r.render(jax.random.PRNGKey(0)))
-    np.testing.assert_allclose(imgs["fused"], imgs["staged"],
-                               rtol=2e-4, atol=2e-4)
-
-
-def test_fused_grid_matches_staged_brute(scenes_dir):
-    """The fused level kernel's GRID mode (slab gates + grid occluder
-    compare in-kernel) must match the staged cost-brute pipeline — the
-    same tested-set semantics, so only float association may differ."""
-    import os
-
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from distributionraytracer_tpu.accel.pallas_grid import (
-        make_brute_grid_intersectors,
-    )
-    from distributionraytracer_tpu.integrator.render import (
-        SampleSet, default_config, make_samples, render_from_samples,
-    )
-    from distributionraytracer_tpu.renderer import Renderer
-    from distributionraytracer_tpu.scene import load_p3f
-
-    scene = load_p3f(os.path.join(scenes_dir, "balls_box.p3f"))
-    cfg = default_config(scene).replace(accel_backend="pallas",
-                                        accel_cost_threshold=0,
-                                        pallas="on")
-    r = Renderer(scene, cfg)
-    samples = make_samples(scene, cfg, jax.random.PRNGKey(0))
-    sl = lambda a: a[200:204]
-    chunk = SampleSet(sl(samples.pixel), sl(samples.light),
-                      sl(samples.lens), sl(samples.time))
-    pg = r.grid_pallas
-    staged = np.asarray(render_from_samples(
-        scene.device_put(), cfg, chunk, row_offset=jnp.float32(200),
-        inter=make_brute_grid_intersectors(scene, pg, False,
-                                           interpret=True)))
-    fused = np.asarray(render_from_samples(
-        scene.device_put(), cfg, chunk, row_offset=jnp.float32(200),
-        inter=None, fused_grid=(pg.bbox_min, pg.bbox_max)))
-    diff = np.abs(staged - fused).max(axis=-1)
-    assert (diff > 1e-2).mean() < 0.005, (diff > 1e-2).mean()
